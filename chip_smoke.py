@@ -8,13 +8,19 @@
 2. Holds each kernel against its plain PyTorch version on the card, at
    the main path's shape ``[37, 6603710]`` and at edge shapes, and times
    kernel, plain version, a one-call PyTorch yardstick and the bound.
-3. Runs a small synchronous simulation on the GPU and on the CPU with the
-   same draws and weights, and holds the two to each other.
+3. Runs small simulations on the GPU and on the CPU with the same fleet,
+   draws and weights, and holds the two to each other: a synchronous one,
+   and hostile ones under trimmed-mean and multi-Krum; and one CNN
+   gradient step.
 4. Drives the main path through its entry point: three synchronous rounds
    of the paper's setup at paper scale (SynthFEMNIST with 371 clients,
    the 6,603,710-parameter CNN, 10% of clients per round, B = 10, E = 5,
    lr = 0.01), checking that each round launched each kernel once.
 5. Profiles one more such round: device time by kernel, idle share.
+6. Drives the hostile path at the same scale, two rounds each: the
+   ``byzantine`` fleet (25 % sign-flip attackers) under trimmed-mean
+   (trim 9), and ``byzantine-colluding`` (colluding-flip at scale 4)
+   under Krum and multi-Krum, checking each round's kernel launches.
 
 Prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the exit code
@@ -44,6 +50,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 MAIN_K, MAIN_N = 37, 6_603_710        # S clients x CNN-2048 parameters
+MAIN_TRIM = MAIN_K // 4               # the robust study's trim = cohort // 4
+F32_TOL = dict(rtol=1e-5, atol=1e-6)
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-6)
 
 
 def log(msg: str) -> None:
@@ -148,35 +157,228 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return {r["name"]: r for r in rows}
 
 
-def phase_small_sim() -> None:
-    """GPU against CPU on a small run: same data, weights and draws."""
+def phase_robust_kernels(gen: torch.Generator) -> dict:
+    """K4 ``trimmed_agg`` and K5 ``pairwise_sq_dists`` against their plain
+    versions, and their times at the hostile path's shape."""
+    from repro_torch.kernels import krum as kkrum
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import trimmed as ktrim
+
+    def inputs(S, N, dtype):
+        x = torch.randn(S, N, generator=gen, device="cuda").to(dtype)
+        w = torch.rand(S, generator=gen, device="cuda") + 0.1
+        return x, w / w.sum()
+
+    err = {}
+    for S, N, trim, dt in [(MAIN_K, MAIN_N, MAIN_TRIM, torch.float32),
+                           (MAIN_K, MAIN_N, MAIN_TRIM, torch.bfloat16),
+                           (3, 1, 1, torch.float32), (5, 300, 0, torch.float32),
+                           (70, 4099, 20, torch.bfloat16)]:
+        x, w = inputs(S, N, dt)
+        out, want = ktrim.trimmed_agg(x, w, trim), ref.trimmed_agg_ref(x, w,
+                                                                      trim)
+        torch.cuda.synchronize()
+        assert out.dtype == dt and out.shape == (N,)
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        torch.testing.assert_close(out.float(), want.float(), **tol)
+        assert torch.equal(out, ktrim.trimmed_agg(x, w, trim))
+        e = (out.float() - want.float()).abs().max().item()
+        log(f"trimmed_agg [{S}, {N}] trim {trim} {dt}: max |kernel - plain| "
+            f"= {e:.3e}")
+        err.setdefault("trimmed_agg", e)
+    # duplicate-heavy columns and distinct weights within a factor of 2:
+    # trimming another of two equal values changes the result by ~1e-3
+    # relative, so the keep sets must agree
+    x = torch.randint(-2, 3, (MAIN_K, 1 << 16), generator=gen,
+                      device="cuda").float()
+    w = 1.0 + torch.arange(MAIN_K, device="cuda") / MAIN_K
+    w = w / w.sum()
+    torch.testing.assert_close(ktrim.trimmed_agg(x, w, MAIN_TRIM),
+                               ref.trimmed_agg_ref(x, w, MAIN_TRIM),
+                               **F32_TOL)
+    # non-finite values: NaN wherever the plain version gives NaN
+    x[:, :8] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0,
+                             -0.0, 1.0, -1.0, 2.0], device="cuda")
+    x[0, 8], x[1, 9], x[-1, 10] = float("nan"), float("inf"), -float("inf")
+    torch.testing.assert_close(ktrim.trimmed_agg(x, w, MAIN_TRIM),
+                               ref.trimmed_agg_ref(x, w, MAIN_TRIM),
+                               equal_nan=True, **F32_TOL)
+    for S, N, dt in [(MAIN_K, MAIN_N, torch.float32), (1, 1, torch.float32),
+                     (1, 487, torch.float32), (70, 5000, torch.float32),
+                     (MAIN_K, 3001, torch.bfloat16)]:
+        x, _ = inputs(S, N, dt)
+        d2, gram = kkrum.pairwise_sq_dists(x, with_gram=True)
+        xf = x.float()
+        want_gram = xf @ xf.T
+        want = kkrum.gram_sq_dists(want_gram)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(gram, want_gram, rtol=1e-5,
+                                   atol=1e-5 * N ** 0.5)
+        atol = 1e-5 * float(torch.diagonal(want_gram).max())
+        torch.testing.assert_close(d2, want, rtol=1e-5, atol=atol)
+        assert torch.equal(d2, kkrum.pairwise_sq_dists(x))
+        e = (d2 - want).abs().max().item()
+        log(f"pairwise_sq_dists [{S}, {N}] {dt}: max |kernel - plain| = "
+            f"{e:.3e} (d2 atol {atol:.3e}), max |G - x x^T| = "
+            f"{(gram - want_gram).abs().max().item():.3e}")
+        err.setdefault("pairwise_sq_dists", e)
+
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        x, w = inputs(MAIN_K, MAIN_N, dt)
+        item = x.element_size()
+        kept = sum(MAIN_K - 2 * r for r in range(MAIN_TRIM))
+        ops_col = 2 * kept + 3 * (MAIN_K - 2 * MAIN_TRIM)
+        rows.append(("trimmed_agg" if dt == torch.float32
+                     else "trimmed_agg_bf16",
+                     "src/repro_torch/kernels/csrc/trimmed.cu",
+                     lambda x=x, w=w: ktrim.trimmed_agg(x, w, MAIN_TRIM),
+                     lambda x=x, w=w: ref.trimmed_agg_ref(x, w, MAIN_TRIM),
+                     lambda x=x: torch.sort(x, dim=0, stable=True),
+                     "torch.sort(x, dim=0, stable=True), the sort step of a "
+                     "sort-based version",
+                     x.numel() * item + MAIN_K * 4 + MAIN_N * item,
+                     ops_col * MAIN_N, "src/repro/kernels/trimmed.py:55",
+                     str(dt).replace("torch.", "")))
+        del x, w
+    x, _ = inputs(MAIN_K, MAIN_N, torch.float32)
+    rows.append(("pairwise_sq_dists", "src/repro_torch/kernels/csrc/krum.cu",
+                 lambda: kkrum.pairwise_sq_dists(x),
+                 lambda: kkrum.gram_sq_dists(x @ x.T),
+                 lambda: x @ x.T, "x @ x.T (cuBLAS, TF32 off)",
+                 x.numel() * 4 + MAIN_K * MAIN_K * 4,
+                 MAIN_K * (MAIN_K + 1) * MAIN_N,
+                 "src/repro/kernels/krum.py:53", "float32"))
+    out = {}
+    for (name, source, kernel, plain, library, library_label, nbytes, flops,
+         replaces, dtype) in rows:
+        ms, plain_ms, lib_ms = time_ms(kernel), time_ms(plain), time_ms(library)
+        bound_ms, bound_by = bound(nbytes, flops)
+        log(f"{name} [{MAIN_K}, {MAIN_N}] {dtype}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms ({library_label}), "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {flops} "
+            f"operations); kernel reaches {bound_ms / ms:.1%} of the bound")
+        out[name] = {"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": None,
+                     "max_abs_err": err[name.replace("_bf16", "")],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+    del x
+    torch.cuda.empty_cache()
+    # the bf16 timing is printed; the JSON line carries one row per kernel
+    out.pop("trimmed_agg_bf16")
+    return out
+
+
+def phase_small_runs() -> None:
+    """GPU against CPU on small runs with the same data, fleet, draws and
+    weights: a synchronous run, a trimmed-mean run on the ``byzantine``
+    fleet and a multi-Krum run on the colluding one (the same Krum
+    selections on both devices), and one CNN gradient step.
+
+    The runs train the MLP at hidden 48: a small CNN's trajectory on the
+    two devices parts at the first ReLU whose input rounds to the other
+    side of zero (one sample's gradient then moves a bias by ~5e-5 at
+    lr 0.1, and a Krum selection or a trimmed row can follow), so the
+    convolutions are held to the CPU on one gradient of local training
+    instead.
+    Tolerances: parameters at rtol 1e-4 / atol 1e-5 (every local step
+    sums in another order on the two devices), metrics at rtol 1e-5, the
+    virtual clock at rtol 1e-6.
+    """
+    from dataclasses import dataclass, field
+
+    from torch.func import grad, vmap
+
+    from repro_torch.core.aggregate import compute_weights
     from repro_torch.data.synthetic import make_synth_femnist
     from repro_torch.federated.draws import TorchDraws
+    from repro_torch.federated.engine import (MultiKrumStrategy,
+                                              make_strategy)
+    from repro_torch.federated.scenarios import ScenarioConfig, make_fleet
     from repro_torch.federated.simulation import (FederatedSimulation,
                                                   FedSimConfig)
-    from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.cnn import cnn_loss, init_cnn_params
+    from repro_torch.models.mlp import init_mlp_params, mlp_accuracy, mlp_loss
+
+    @dataclass(frozen=True)
+    class RecordingMultiKrum(MultiKrumStrategy):
+        """Multi-Krum that also records each round's selected clients."""
+
+        picks: list = field(default_factory=list, compare=False)
+
+        def step(self, state, inp, cfg):
+            f, m = self._resolve(int(inp.mask.shape[0]))
+            p = compute_weights(inp.criteria, cfg, tuple(cfg.priority),
+                                mask=inp.contrib)
+            _, scores = kops.flat_krum_agg(inp.stacked, p, f, m)
+            self.picks.append(sorted(
+                torch.sort(scores, stable=True).indices[:m].tolist()))
+            return super().step(state, inp, cfg)
 
     data = make_synth_femnist(num_clients=16, mean_samples=24, seed=3)
-    cfg = FedSimConfig(fraction=0.25, batch_size=8, local_epochs=1, lr=0.1,
-                       max_rounds=2, eval_every=1)
-    results = {}
+    for label, scen, make in [
+            ("sync", None, lambda: None),
+            ("trimmed-mean", ScenarioConfig(preset="byzantine"),
+             lambda: make_strategy("trimmed-mean", trim=2)),
+            ("multi-krum", ScenarioConfig(preset="byzantine-colluding",
+                                          attack="colluding-flip",
+                                          attack_scale=4.0),
+             RecordingMultiKrum)]:
+        fleet = (make_fleet(scen, data.num_clients, device="cpu")
+                 if scen is not None else None)
+        results, picks = {}, {}
+        for dev in ("cuda", "cpu"):
+            strategy = make()
+            cfg = FedSimConfig(fraction=0.25 if scen is None else 0.5,
+                               batch_size=8, local_epochs=1, lr=0.1,
+                               max_rounds=3, eval_every=1, scenario=scen,
+                               strategy=strategy)
+            params = init_mlp_params(torch.Generator().manual_seed(1),
+                                     hidden=48, device=dev)
+            sim = FederatedSimulation(data, params, mlp_loss, mlp_accuracy,
+                                      cfg, draws=TorchDraws(0, "cpu"),
+                                      fleet=fleet, device=dev)
+            results[dev] = sim.run(verbose=False)
+            picks[dev] = getattr(strategy, "picks", None)
+        gpu, cpu = results["cuda"], results["cpu"]
+        assert picks["cuda"] == picks["cpu"], picks
+        torch.testing.assert_close(gpu.final_state.params.cpu(),
+                                   cpu.final_state.params, rtol=1e-4,
+                                   atol=1e-5)
+        for a, b in zip(gpu.metrics, cpu.metrics):
+            assert a.participants == b.participants and a.commits == b.commits
+            assert math.isclose(a.sim_time, b.sim_time, rel_tol=1e-6), (a, b)
+            assert math.isclose(a.global_acc, b.global_acc, rel_tol=1e-5)
+            assert math.isclose(a.weights_entropy, b.weights_entropy,
+                                rel_tol=1e-5), (a, b)
+        gap = (gpu.final_state.params.cpu()
+               - cpu.final_state.params).abs().max().item()
+        log(f"small {label} run, GPU vs CPU: max |params gap| = {gap:.3e}, "
+            f"acc {[round(m.global_acc, 4) for m in gpu.metrics]}, "
+            f"participants {[m.participants for m in gpu.metrics]}"
+            + (f", selections {picks['cuda']}" if picks["cuda"] else ""))
+
+    # local training's gradient: vmap over 4 clients' copies of the CNN,
+    # which reaches cuDNN as grouped convolutions
+    images = torch.as_tensor(data.images[:4, :8])
+    labels = torch.as_tensor(data.labels[:4, :8]).long()
+    grads = {}
     for dev in ("cuda", "cpu"):
-        params = init_cnn_params(torch.Generator().manual_seed(1), hidden=16,
+        params = init_cnn_params(torch.Generator().manual_seed(1), hidden=64,
                                  device=dev)
-        sim = FederatedSimulation(data, params, cnn_loss, cnn_accuracy, cfg,
-                                  draws=TorchDraws(0, "cpu"), device=dev)
-        results[dev] = sim.run(verbose=False)
-    gpu, cpu = results["cuda"], results["cpu"]
-    # f32 on both sides (TF32 off); every local step sums in another order
-    torch.testing.assert_close(gpu.final_state.params.cpu(),
-                               cpu.final_state.params, rtol=1e-4, atol=1e-5)
-    for a, b in zip(gpu.metrics, cpu.metrics):
-        assert math.isclose(a.global_acc, b.global_acc, rel_tol=1e-5), (a, b)
-        assert math.isclose(a.weights_entropy, b.weights_entropy,
-                            rel_tol=1e-5), (a, b)
-    gap = (gpu.final_state.params.cpu() - cpu.final_state.params).abs().max()
-    log(f"small run, GPU vs CPU: max |params gap| = {gap.item():.3e}, "
-        f"acc {[m.global_acc for m in gpu.metrics]}")
+        stacked = {k: v.expand(4, *v.shape).contiguous()
+                   for k, v in params.items()}
+        grads[dev] = vmap(grad(cnn_loss))(stacked, images.to(dev),
+                                          labels.to(dev))
+    worst = 0.0
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k].cpu(), g, rtol=1e-4,
+                                   atol=1e-5)
+        worst = max(worst, (grads["cuda"][k].cpu() - g).abs().max().item())
+    log(f"CNN gradient step (4 clients), GPU vs CPU: max |grad gap| = "
+        f"{worst:.3e}")
 
 
 def phase_main_path():
@@ -281,6 +483,84 @@ def phase_profile(data, cfg) -> None:
         f"({ours / summed:.2%} of the summed device time)")
 
 
+def phase_hostile_path(data) -> dict:
+    """The hostile path at paper scale, two rounds per configuration,
+    each driven through ``FederatedSimulation.run`` with every launch
+    count set to 0 just before it and read just after."""
+    from repro_torch.core.aggregate import AggregationConfig
+    from repro_torch.federated.engine import make_strategy
+    from repro_torch.federated.scenarios import ScenarioConfig
+    from repro_torch.federated.simulation import (FederatedSimulation,
+                                                  FedSimConfig)
+    from repro_torch.kernels import divergence as kdiv
+    from repro_torch.kernels import krum as kkrum
+    from repro_torch.kernels import trimmed as ktrim
+    from repro_torch.kernels import weighted_agg as kagg
+    from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params
+
+    wrappers = {"weighted_agg": kagg.weighted_agg,
+                "divergence_sq": kdiv.divergence_sq,
+                "trimmed_agg": ktrim.trimmed_agg,
+                "pairwise_sq_dists": kkrum.pairwise_sq_dists}
+    totals = dict.fromkeys(wrappers, 0)
+    rounds = 2
+    for preset, attack, scale, name, kwargs in [
+            ("byzantine", "sign-flip", 1.0, "trimmed-mean",
+             dict(trim=MAIN_TRIM)),
+            ("byzantine-colluding", "colluding-flip", 4.0, "krum", {}),
+            ("byzantine-colluding", "colluding-flip", 4.0, "multi-krum", {})]:
+        cfg = FedSimConfig(
+            fraction=0.1, batch_size=10, local_epochs=5, lr=0.01,
+            max_rounds=rounds, eval_every=1,
+            aggregation=AggregationConfig(priority=(2, 0, 1)),
+            scenario=ScenarioConfig(preset=preset, attack=attack,
+                                    attack_scale=scale, corrupt_frac=0.25),
+            strategy=make_strategy(name, **kwargs))
+        sim = FederatedSimulation(
+            data, init_cnn_params(torch.Generator().manual_seed(0),
+                                  hidden=2048),
+            cnn_loss, cnn_accuracy, cfg)
+        n_corrupt = int(sim.fleet.corrupt.sum())
+        assert n_corrupt == math.ceil(0.25 * data.num_clients)
+        assert sim.fleet.attack == attack
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        res = sim.run(targets=(0.75,), device_fracs=(0.5,), verbose=False)
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+
+        krum = name != "trimmed-mean"
+        assert [m.round for m in res.metrics] == list(range(1, rounds + 1))
+        assert launches == {"weighted_agg": rounds if krum else 0,
+                            "divergence_sq": rounds,
+                            "trimmed_agg": 0 if krum else rounds,
+                            "pairwise_sq_dists": rounds if krum else 0}, \
+            launches
+        prev = 0.0
+        for m in res.metrics:
+            assert math.isfinite(m.global_acc) and 0.0 <= m.global_acc <= 1.0
+            assert 0 < m.participants <= MAIN_K and m.commits == m.round
+            assert math.isfinite(m.weights_entropy) and m.sim_time > 0
+            log(f"hostile {name} ({preset}, {attack} x{scale:g}) round "
+                f"{m.round}: {m.wall_time - prev:.2f} s (with its "
+                f"evaluation), global_acc {m.global_acc:.4f}, participants "
+                f"{m.participants}, sim_time {m.sim_time:.3f}")
+            prev = m.wall_time
+        final = res.final_state.params
+        assert final.shape == (MAIN_N,) and bool(torch.isfinite(final).all())
+        per_round = {k: v / rounds for k, v in launches.items()}
+        log(f"hostile {name}: {rounds} rounds in "
+            f"{res.metrics[-1].wall_time:.2f} s, {n_corrupt} corrupt clients "
+            f"of {data.num_clients}, peak device memory "
+            f"{peak / 2**30:.2f} GiB, launches {launches} ({per_round} per "
+            f"round)")
+        for k, v in launches.items():
+            totals[k] += v
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -306,12 +586,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    rows = phase_kernels(torch.Generator(device="cuda").manual_seed(0))
-    phase_small_sim()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = phase_kernels(gen)
+    rows.update(phase_robust_kernels(gen))
+    phase_small_runs()
     launches, data, cfg = phase_main_path()
     phase_profile(data, cfg)
+    hostile = phase_hostile_path(data)
+    # each kernel's launches from the path that runs it: the sync main
+    # path for K1 and K2, the hostile runs for K4 and K5
+    launches.update(trimmed_agg=hostile["trimmed_agg"],
+                    pairwise_sq_dists=hostile["pairwise_sq_dists"])
     for name, n in launches.items():
+        assert n > 0, (name, n)
         rows[name]["launches"] = n
+    assert sorted(rows) == sorted(launches)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,17 @@ class Draws(Protocol):
         """``[S, steps, batch_size]`` int64 row indices, each drawn
         uniformly with replacement below the client's ``counts_sel[s]``."""
 
+    def dropout(self, rnd: int, probs: torch.Tensor) -> torch.Tensor:
+        """``[S]`` f32 0/1 upload losses, 1 with probability ``probs[s]``
+        (the reference draws them from the round key's third split)."""
+
+    def completion_eps(self, rnd: int, n: int) -> torch.Tensor:
+        """``[n]`` f32 standard normals: the completion-time jitter."""
+
+    def attack_noise(self, rnd: int, S: int, N: int) -> torch.Tensor:
+        """``[S, N]`` f32 standard normals: the payload noise of the
+        ``random`` and ``colluding-alie`` attacks, one row per client."""
+
 
 def _splitmix64(x: int) -> int:
     x = (x + 0x9E3779B97F4A7C15) & _MASK64
@@ -38,12 +49,25 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def seeded_generator(seed: int, *stream: int,
+                     device: torch.device | str = "cpu") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from ``seed`` and the
+    stream ids, so that distinct streams of one seed are independent."""
+    mixed = _splitmix64(int(seed) & _MASK64)
+    for s in stream:
+        mixed = _splitmix64(mixed ^ int(s))
+    g = torch.Generator(device=device)
+    g.manual_seed(mixed >> 1)               # a non-negative 63-bit seed
+    return g
+
+
 class TorchDraws:
     """Draws from ``torch.Generator``s on ``device``, one per (round, use).
 
     Each round's generator is seeded from ``(seed, rnd, use)`` alone, so a
     round's draws do not depend on the rounds before it, as in the
-    reference.
+    reference.  Uses: 0 selection, 1 batch plans, 2 dropout, 3 completion
+    jitter, 4 attack noise.
     """
 
     def __init__(self, seed: int, device: torch.device | str = "cuda"):
@@ -51,10 +75,7 @@ class TorchDraws:
         self.device = torch.device(device)
 
     def _generator(self, rnd: int, use: int) -> torch.Generator:
-        g = torch.Generator(device=self.device)
-        mixed = _splitmix64(_splitmix64(_splitmix64(self.seed) ^ rnd) ^ use)
-        g.manual_seed(mixed >> 1)           # a non-negative 63-bit seed
-        return g
+        return seeded_generator(self.seed, rnd, use, device=self.device)
 
     def select(self, rnd: int, num_clients: int, n: int) -> torch.Tensor:
         return sample_clients(self._generator(rnd, 0), num_clients, n)
@@ -66,3 +87,15 @@ class TorchDraws:
                        generator=self._generator(rnd, 1), device=self.device)
         idx = (u * n[:, None, None].to(torch.float32)).to(torch.int64)
         return torch.minimum(idx, n[:, None, None] - 1)
+
+    def dropout(self, rnd: int, probs: torch.Tensor) -> torch.Tensor:
+        p = probs.to(self.device, torch.float32)
+        return torch.bernoulli(p, generator=self._generator(rnd, 2))
+
+    def completion_eps(self, rnd: int, n: int) -> torch.Tensor:
+        return torch.randn(n, generator=self._generator(rnd, 3),
+                           device=self.device)
+
+    def attack_noise(self, rnd: int, S: int, N: int) -> torch.Tensor:
+        return torch.randn((S, N), generator=self._generator(rnd, 4),
+                           device=self.device)

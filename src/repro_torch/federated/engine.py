@@ -1,29 +1,33 @@
-"""Round-engine core: the server's carry and the synchronous strategy.
+"""Round-engine core: the server's carry and the synchronous strategies.
 
-Counterpart of the sync path of ``repro.federated.engine``:
+Counterpart of the synchronous strategies of ``repro.federated.engine``:
 
 * :class:`ServerState` — what the server remembers between rounds: the
   flat global model, each client's last committed round, the virtual
   clock and the commit count,
 * :class:`RoundInputs` — what one round produced on the client side,
-* :class:`AggregationStrategy` — the protocol a policy implements, and
-  :class:`SyncStrategy`, the paper's synchronous round.
+* :class:`AggregationStrategy` — the protocol a policy implements;
+  :class:`SyncStrategy`, the paper's synchronous round; and the robust
+  rounds :class:`TrimmedMeanStrategy`, :class:`KrumStrategy` and
+  :class:`MultiKrumStrategy`, reached by name through
+  :func:`make_strategy`.
 
 The server keeps the flat representation: ``params`` is the ``[N]`` f32
 global vector and ``RoundInputs.stacked`` the round's ``[S, N]`` client
-matrix, so the commit is one streaming reduction (the ``weighted_agg``
-CUDA kernel on the GPU).  Every value stays on the device; nothing here
+matrix, so each commit is one streaming reduction (a CUDA kernel on the
+GPU).  Every value stays on the device; nothing here
 waits for it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.aggregate import (AggregationConfig, aggregate_models,
                                         compute_weights)
+from repro_torch.kernels import ops as kops
 
 
 @dataclass
@@ -98,6 +102,25 @@ class AggregationStrategy:
         raise NotImplementedError
 
 
+def _sync_commit(state: ServerState, inp: RoundInputs, p: torch.Tensor,
+                 new_params: torch.Tensor
+                 ) -> Tuple[ServerState, Dict[str, torch.Tensor]]:
+    """The synchronous round's bookkeeping around its reduction: keep the
+    model when every upload dropped (the clock then advances one unit),
+    else commit and charge the straggler barrier ``max_k dt_k``."""
+    alive = inp.contrib.sum() > 0
+    barrier = (inp.dt * inp.mask).max()
+    new_state = replace(
+        state,
+        params=torch.where(alive, new_params, state.params),
+        last_sync=_scatter_round(state.last_sync, inp.sel, inp.mask,
+                                 inp.rnd, alive.to(torch.float32)),
+        sim_time=state.sim_time + torch.where(alive, barrier, 1.0),
+        commits=state.commits + alive.to(torch.int32),
+    )
+    return new_state, {"entropy": _entropy(p)}
+
+
 class SyncStrategy(AggregationStrategy):
     """The paper's synchronous round: aggregate every participant now.
 
@@ -109,16 +132,96 @@ class SyncStrategy(AggregationStrategy):
     def step(self, state, inp, cfg):
         p = compute_weights(inp.criteria, cfg, tuple(cfg.priority),
                             mask=inp.contrib)
-        new_params = aggregate_models(inp.stacked, p)
-        alive = inp.contrib.sum() > 0
-        new_params = torch.where(alive, new_params, state.params)
-        barrier = (inp.dt * inp.mask).max()       # wait for stragglers
-        new_state = replace(
-            state,
-            params=new_params,
-            last_sync=_scatter_round(state.last_sync, inp.sel, inp.mask,
-                                     inp.rnd, alive.to(torch.float32)),
-            sim_time=state.sim_time + torch.where(alive, barrier, 1.0),
-            commits=state.commits + alive.to(torch.int32),
-        )
-        return new_state, {"entropy": _entropy(p)}
+        return _sync_commit(state, inp, p,
+                            aggregate_models(inp.stacked, p))
+
+
+@dataclass(frozen=True)
+class TrimmedMeanStrategy(AggregationStrategy):
+    """Byzantine-robust sync: coordinate-wise weighted trimmed mean.
+
+    Per coordinate the ``trim`` largest and ``trim`` smallest client
+    values are dropped and the rest combined by their renormalized Eq. 3
+    weights (the ``trimmed_agg`` CUDA kernel on the GPU).  A dropped
+    client keeps weight 0 but still occupies a value slot; size ``trim``
+    for the round cohort ``S``: needs ``2 * trim < S``.
+    """
+
+    trim: int = 1
+
+    supports_online_adjust = False
+
+    def step(self, state, inp, cfg):
+        S = int(inp.mask.shape[0])
+        if not 0 <= 2 * self.trim < S:
+            raise ValueError(
+                f"TrimmedMeanStrategy needs 0 <= 2*trim < round size; "
+                f"got trim={self.trim} for S={S}")
+        p = compute_weights(inp.criteria, cfg, tuple(cfg.priority),
+                            mask=inp.contrib)
+        new_params = kops.flat_trimmed_agg(inp.stacked, p, self.trim)
+        return _sync_commit(state, inp, p, new_params)
+
+
+@dataclass(frozen=True)
+class KrumStrategy(AggregationStrategy):
+    """Distance-based Byzantine-robust sync: Krum / multi-Krum.
+
+    Blanchard et al. (2017): each client scores the summed squared
+    distances to its ``S - f - 2`` nearest cohort neighbours, and the
+    ``m`` best-scored clients are averaged by their renormalized Eq. 3
+    weights (``m = 1`` is Krum).  ``f = None`` is the largest admissible
+    bound ``(S - 3) // 2``; ``f`` and ``m`` are checked against ``S`` at
+    the first step.  Dropped uploads score ``+inf`` but still serve as
+    neighbours.  The distances are the ``pairwise_sq_dists`` CUDA kernel
+    on the GPU, the average the ``weighted_agg`` one.
+    """
+
+    f: Optional[int] = None
+    m: Optional[int] = 1
+
+    supports_online_adjust = False
+
+    def _resolve(self, S: int) -> Tuple[int, int]:
+        f = self.f if self.f is not None else max(0, (S - 3) // 2)
+        if not (0 <= f and 2 * f + 2 < S):
+            raise ValueError(
+                f"KrumStrategy needs f < (S - 2) / 2; got f={f} for S={S}")
+        m = self.m if self.m is not None else max(1, S - f - 2)
+        if not 1 <= m <= S - f - 2:
+            raise ValueError(
+                f"KrumStrategy needs 1 <= m <= S - f - 2; got m={m} "
+                f"for S={S}, f={f}")
+        return f, m
+
+    def step(self, state, inp, cfg):
+        f, m = self._resolve(int(inp.mask.shape[0]))
+        p = compute_weights(inp.criteria, cfg, tuple(cfg.priority),
+                            mask=inp.contrib)
+        new_params, _ = kops.flat_krum_agg(inp.stacked, p, f, m)
+        return _sync_commit(state, inp, p, new_params)
+
+
+@dataclass(frozen=True)
+class MultiKrumStrategy(KrumStrategy):
+    """Multi-Krum: ``m = None`` resolves to ``S - f - 2``, every client
+    whose score the Krum criterion trusts."""
+
+    m: Optional[int] = None
+
+
+#: the strategies this port carries, by the reference's registry names
+STRATEGIES = {
+    "sync": SyncStrategy,
+    "trimmed-mean": TrimmedMeanStrategy,
+    "krum": KrumStrategy,
+    "multi-krum": MultiKrumStrategy,
+}
+
+
+def make_strategy(name: str, **kwargs) -> AggregationStrategy:
+    """Strategy factory: ``make_strategy("trimmed-mean", trim=9)``."""
+    if name not in STRATEGIES:
+        raise KeyError(f"unknown or unported aggregation strategy {name!r}; "
+                       f"available: {sorted(STRATEGIES)}")
+    return STRATEGIES[name](**kwargs)

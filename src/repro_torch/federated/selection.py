@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.federated.draws import Draws
+from repro_torch.federated.scenarios import DeviceFleet
 
 
 @dataclass
@@ -23,16 +24,20 @@ class SelectionContext:
     * ``num_clients`` fleet size ``K``
     * ``n``           round size ``S``
     * ``rnd``         round id (1-based)
+    * ``fleet``       the device fleet, or ``None`` without a scenario
+      (policies must not read its ``corrupt`` flags)
     """
 
     draws: Draws
     num_clients: int
     n: int
     rnd: int
+    fleet: Optional[DeviceFleet] = None
 
 
 class UniformPolicy:
-    """FedAvg's uniform draw of ``n`` distinct clients."""
+    """FedAvg's uniform draw of ``n`` distinct clients; it ignores the
+    fleet."""
 
     def select(self, ctx: SelectionContext
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

@@ -1,14 +1,23 @@
 """The paper's synchronous federated round, end to end on one device.
 
-Counterpart of ``repro.federated.simulation`` with the defaults of the
-paper's protocol (§3): uniform selection of a fraction of the clients
-(:class:`UniformPolicy`), local SGD for every selected client at once,
-the Ds / Ld / Md criteria normalized over the round's participants, the
-prioritized operator's Eq. 3 weights, and the commit
-``w_G = sum_k p_k w_k`` (:class:`SyncStrategy`).  The server keeps the
-flat representation: the round's client models are one ``[S, N]``
-matrix, the Md criterion streams through the ``divergence_sq`` CUDA
-kernel and the commit through the ``weighted_agg`` one.
+Counterpart of ``repro.federated.simulation`` on its flat path
+(``flat_params=True``).  By default it runs the paper's protocol (§3):
+uniform selection of a fraction of the clients (:class:`UniformPolicy`),
+local SGD for every selected client at once, the Ds / Ld / Md criteria
+normalized over the round's participants, the prioritized operator's
+Eq. 3 weights, and the commit ``w_G = sum_k p_k w_k``
+(:class:`SyncStrategy`).  The server keeps the flat representation: the
+round's client models are one ``[S, N]`` matrix, the Md criterion
+streams through the ``divergence_sq`` CUDA kernel and the commit through
+the ``weighted_agg`` one.
+
+``FedSimConfig.scenario`` adds a device fleet (``federated.scenarios``):
+availability, upload loss and straggler times mask the round, and a
+``byzantine`` fleet's corrupt clients replace their trained models with
+an attack's payload before the server sees them (``federated.attacks``).
+``FedSimConfig.strategy`` picks the commit: the robust ones
+(``make_strategy("trimmed-mean" | "krum" | "multi-krum")``) reduce
+through the ``trimmed_agg`` and ``pairwise_sq_dists`` CUDA kernels.
 
 Local training is ``torch.func.vmap(torch.func.grad(loss))`` over the
 clients' stacked parameters, one step per batch of the round's plans —
@@ -17,10 +26,10 @@ LEAF-style: every eval point, the global model is tested on every
 client's local test set; the global accuracy is the test-size-weighted
 mean of the per-client accuracies.
 
-Not ported yet (the reference's other ``FedSimConfig`` options):
-device scenarios, other strategies and policies, Algorithm-1 online
-adjustment, compression, meshes, DP accounting, deadlines and
-checkpoints.
+Not ported yet (the reference's other ``FedSimConfig`` options): the
+other presets and strategies, policies other than the uniform draw,
+Algorithm-1 online adjustment, compression, meshes, DP accounting,
+deadlines and checkpoints.
 """
 from __future__ import annotations
 
@@ -36,13 +45,20 @@ from repro_torch.core.aggregate import AggregationConfig
 from repro_torch.core.criteria import (ClientContext, criterion_needs,
                                        measure_criteria, normalize_criteria)
 from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.federated.attacks import (NOISY, apply_attack,
+                                           apply_colluding_attack,
+                                           cohort_stats, is_colluding)
 from repro_torch.federated.draws import Draws, TorchDraws
-from repro_torch.federated.engine import (RoundInputs, ServerState,
-                                          SyncStrategy)
+from repro_torch.federated.engine import (AggregationStrategy, RoundInputs,
+                                          ServerState, SyncStrategy)
 from repro_torch.federated.sampler import num_selected
+from repro_torch.federated.scenarios import (DeviceFleet, ScenarioConfig,
+                                             completion_time, make_fleet,
+                                             participation)
 from repro_torch.federated.selection import SelectionContext, UniformPolicy
 from repro_torch.kernels import ops as kops
 from repro_torch.optim.optimizers import sgd
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import FlatSpec, Params
 
 # Test images per evaluation batch: bounds the activations held at once.
@@ -53,8 +69,10 @@ _EVAL_IMAGES = 4096
 class FedSimConfig:
     """Simulation hyper-parameters (the paper's values by default).
 
-    ``online_adjust=True`` (Algorithm 1) is not ported yet and raises
-    ``NotImplementedError``.
+    ``scenario=None`` runs without a device fleet (every selected client
+    participates, a round lasts one time unit); ``strategy=None`` is
+    :class:`SyncStrategy`.  ``online_adjust=True`` (Algorithm 1) is not
+    ported yet and raises ``NotImplementedError``.
     """
 
     fraction: float = 0.1          # paper: 10% of clients per round
@@ -66,6 +84,8 @@ class FedSimConfig:
     eval_every: int = 1            # rounds between evaluations
     seed: int = 0
     online_adjust: bool = False
+    scenario: Optional[ScenarioConfig] = None   # device-fleet preset
+    strategy: Optional[AggregationStrategy] = None  # None -> SyncStrategy
 
     def __post_init__(self):
         if self.online_adjust:
@@ -105,26 +125,29 @@ class FederatedSimulation:
     ``device``.  ``device`` is the GPU unless the caller asks for
     ``"cpu"``; with no GPU present the default raises.  ``draws``
     replaces the round's source of random draws (default
-    :class:`TorchDraws` on ``device``, seeded by ``config.seed``).
+    :class:`TorchDraws` on ``device``, seeded by ``config.seed``), and
+    ``fleet`` the device fleet (default ``make_fleet(config.scenario, K)``
+    when the config has a scenario, else none).
     """
 
     def __init__(self, data: FederatedDataset, init_params: Params,
                  loss_fn: Callable, acc_fn: Callable, config: FedSimConfig,
                  draws: Optional[Draws] = None,
+                 fleet: Optional[DeviceFleet] = None,
                  device: torch.device | str = "cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "FederatedSimulation runs on the GPU by default and no CUDA "
-                "device is available; pass device='cpu' to run on the CPU")
+        self.device = resolve_device(device, "FederatedSimulation")
         self.data = data
         self.cfg = config
         self.loss_fn = loss_fn
         self.acc_fn = acc_fn
         self.draws = draws if draws is not None else TorchDraws(
             config.seed, self.device)
-        self.strategy = SyncStrategy()
+        self.strategy = (config.strategy if config.strategy is not None
+                         else SyncStrategy())
         self.policy = UniformPolicy()
+        if fleet is None and config.scenario is not None:
+            fleet = make_fleet(config.scenario, data.num_clients, self.device)
+        self.fleet = fleet.to(self.device) if fleet is not None else None
         self.params = {k: v.to(self.device) for k, v in init_params.items()}
         self._fspec = FlatSpec(self.params)
         self._needs_update = any("update" in criterion_needs(n)
@@ -192,21 +215,50 @@ class FederatedSimulation:
         raw = measure_criteria(self.cfg.aggregation.criteria, ctx)
         return normalize_criteria(raw, mask)
 
+    def _attack(self, stacked: torch.Tensor, global_vec: torch.Tensor,
+                sel: torch.Tensor, rnd: int) -> torch.Tensor:
+        """The corrupt clients' payloads swapped into the trained wave:
+        a static attack from each client's own update, a colluding one
+        from the corrupt rows' pooled updates (``cohort_stats``)."""
+        fleet = self.fleet
+        corrupt = fleet.corrupt[sel]
+        S, N = stacked.shape
+        noise = (self.draws.attack_noise(rnd, S, N).to(self.device)
+                 if fleet.attack in NOISY else None)
+        if not is_colluding(fleet.attack):
+            return apply_attack(fleet.attack, stacked, global_vec, corrupt,
+                                fleet.attack_scale, noise)
+        mu, sigma = cohort_stats(stacked - global_vec[None, :], corrupt)
+        return apply_colluding_attack(fleet.attack, stacked, global_vec,
+                                      corrupt, fleet.attack_scale, noise,
+                                      mu, sigma)
+
     def _round_step(self, state: ServerState,
                     rnd: int) -> Tuple[ServerState, Dict[str, torch.Tensor]]:
         S = self._num_sel
+        fleet = self.fleet
         sel, dt_policy = self.policy.select(SelectionContext(
             draws=self.draws, num_clients=self.data.num_clients, n=S,
-            rnd=rnd))
+            rnd=rnd, fleet=fleet))
         sel = sel.to(self.device)
         plans = self.draws.batch_plans(rnd, self.counts[sel],
                                        self._fixed_steps,
                                        self.cfg.batch_size).to(self.device)
         stacked = self._local_train(state.params, sel, plans)
-        # no device scenario: every selected client participates, and the
-        # round lasts one time unit unless the policy saw completion times
-        mask = contrib = torch.ones(S, device=self.device)
-        dt = mask if dt_policy is None else dt_policy.to(self.device)
+        if fleet is not None and fleet.corrupt is not None:
+            stacked = self._attack(stacked, state.params, sel, rnd)
+        if fleet is not None:
+            drop = self.draws.dropout(rnd, fleet.dropout_prob[sel])
+            mask, contrib = participation(fleet, sel, rnd,
+                                          drop.to(self.device))
+            dt = (dt_policy.to(self.device) if dt_policy is not None
+                  else completion_time(fleet, sel, self.draws.completion_eps(
+                      rnd, S).to(self.device)))
+        else:
+            # every selected client participates, and the round lasts one
+            # time unit unless the policy saw completion times
+            mask = contrib = torch.ones(S, device=self.device)
+            dt = mask if dt_policy is None else dt_policy.to(self.device)
         c = self._measure_criteria(stacked, sel, state.params, mask)
         inp = RoundInputs(rnd=rnd, sel=sel, stacked=stacked, criteria=c,
                           mask=mask, contrib=contrib, dt=dt)

@@ -38,18 +38,28 @@ class ReplayDraws:
     """The reference's per-round draws, as the port's ``Draws`` protocol.
 
     ``repro.federated.simulation`` folds the round into the seed's key and
-    splits it three ways (``simulation.py:831-835``): the first key draws
+    splits it three ways (``simulation.py:831-836``): the first key draws
     the cohort (``sample_clients_jax``), the second the batch plans
-    (``device_batch_plans``).  Returns CPU int64 tensors.
+    (``device_batch_plans``), the third the fleet's upload losses
+    (``scenarios.participation``'s Bernoulli draw).  The completion-time
+    jitter comes from ``fold_in(key, 3)`` and the attack keys from
+    ``split(fold_in(key, 4), S)``, one per client (``:865-870``,
+    ``:936-938``).  A ``random`` attack draws each client's noise leaf by
+    leaf from ``split(client_key, leaves)`` (``attacks.py:70-78``): pass
+    the model's leaf shapes in ravel order as ``noise_leaves`` for it.
+    ``colluding-alie`` draws one flat normal vector per client key.
+    Returns CPU tensors.
     """
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, noise_leaves=None):
         self._base = jax.random.key(seed)
+        self._noise_leaves = noise_leaves
+
+    def _key(self, rnd: int):
+        return jax.random.fold_in(self._base, jnp.int32(rnd))
 
     def _keys(self, rnd: int):
-        key = jax.random.fold_in(self._base, jnp.int32(rnd))
-        k_sel, k_batch, _k_scen = jax.random.split(key, 3)
-        return k_sel, k_batch
+        return jax.random.split(self._key(rnd), 3)
 
     def select(self, rnd, num_clients, n):
         sel = sample_clients_jax(self._keys(rnd)[0], num_clients, n)
@@ -60,6 +70,40 @@ class ReplayDraws:
         plans = device_batch_plans(self._keys(rnd)[1], counts, steps,
                                    batch_size)
         return torch.from_numpy(np.asarray(plans).astype(np.int64))
+
+    def dropout(self, rnd, probs):
+        p = jnp.asarray(probs.cpu().numpy())
+        drop = jax.random.bernoulli(self._keys(rnd)[2], p)
+        return torch.from_numpy(np.asarray(drop).astype(np.float32))
+
+    def completion_eps(self, rnd, n):
+        eps = jax.random.normal(jax.random.fold_in(self._key(rnd), 3), (n,))
+        return torch.from_numpy(np.array(eps, np.float32))
+
+    def attack_noise(self, rnd, S, N):
+        keys = jax.random.split(jax.random.fold_in(self._key(rnd), 4), S)
+        if self._noise_leaves is None:
+            rows = [jax.random.normal(k, (N,), jnp.float32) for k in keys]
+        else:
+            rows = []
+            for k in keys:
+                leaf_keys = jax.random.split(k, len(self._noise_leaves))
+                rows.append(jnp.concatenate([
+                    jax.random.normal(lk, shape, jnp.float32).reshape(-1)
+                    for lk, shape in zip(leaf_keys, self._noise_leaves)]))
+        return torch.from_numpy(np.array(jnp.stack(rows)))
+
+
+def fleet_arrays(fleet) -> dict:
+    """A reference ``DeviceFleet``'s arrays as numpy, for
+    ``repro_torch.convert.fleet_from_jax``, and its static fields."""
+    names = ("tier", "slowdown", "dropout_prob", "duty_cycle", "phase",
+             "corrupt")
+    arrays = {k: np.asarray(getattr(fleet, k)) for k in names
+              if getattr(fleet, k) is not None}
+    static = dict(period=fleet.period, attack=fleet.attack,
+                  attack_scale=fleet.attack_scale)
+    return arrays, static
 
 
 def numpy_params(model: str, hidden: int, seed: int) -> dict:
@@ -146,6 +190,8 @@ def test_importing_the_port_loads_no_jax():
 
 def test_default_device_raises_without_a_gpu(monkeypatch):
     from repro_torch.data.synthetic import make_synth_femnist
+    from repro_torch.federated.engine import make_strategy
+    from repro_torch.federated.scenarios import ScenarioConfig, make_fleet
     from repro_torch.federated.simulation import (FederatedSimulation,
                                                   FedSimConfig)
     from repro_torch.models.mlp import mlp_accuracy, mlp_loss
@@ -154,9 +200,16 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
     data = make_synth_femnist(num_clients=4, mean_samples=8, seed=0)
     params = {k: torch.from_numpy(v)
               for k, v in numpy_params("mlp", 8, 0).items()}
+    hostile = FedSimConfig(max_rounds=1,
+                           scenario=ScenarioConfig(preset="byzantine"),
+                           strategy=make_strategy("krum"))
+    for cfg in (FedSimConfig(max_rounds=1), hostile):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FederatedSimulation(data, params, mlp_loss, mlp_accuracy, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        FederatedSimulation(data, params, mlp_loss, mlp_accuracy,
-                            FedSimConfig(max_rounds=1))
+        make_fleet(ScenarioConfig(preset="byzantine"), 4)
+    assert make_fleet(ScenarioConfig(preset="byzantine"), 4,
+                      device="cpu").corrupt.device.type == "cpu"
 
 
 def test_torch_draws_are_valid_and_repeatable():
@@ -182,6 +235,22 @@ def test_torch_draws_are_valid_and_repeatable():
 def test_replay_draws_match_the_reference_sampler():
     replay = ReplayDraws(seed=0)
     key = jax.random.fold_in(jax.random.key(0), 3)
-    k_sel, _, _ = jax.random.split(key, 3)
+    k_sel, _, k_scen = jax.random.split(key, 3)
     expected = np.asarray(sample_clients_jax(k_sel, 20, 6))
     np.testing.assert_array_equal(replay.select(3, 20, 6).numpy(), expected)
+    probs = np.linspace(0.0, 1.0, 6).astype(np.float32)
+    np.testing.assert_array_equal(
+        replay.dropout(3, torch.from_numpy(probs)).numpy(),
+        np.asarray(jax.random.bernoulli(k_scen, probs), np.float32))
+    np.testing.assert_array_equal(
+        replay.completion_eps(3, 6).numpy(),
+        np.asarray(jax.random.normal(jax.random.fold_in(key, 3), (6,))))
+    keys = jax.random.split(jax.random.fold_in(key, 4), 2)
+    noise = replay.attack_noise(3, 2, 5)
+    np.testing.assert_array_equal(
+        noise[1].numpy(), np.asarray(jax.random.normal(keys[1], (5,))))
+    leafwise = ReplayDraws(seed=0, noise_leaves=[(2,), (3,)])
+    leaf_keys = jax.random.split(keys[0], 2)
+    np.testing.assert_array_equal(
+        leafwise.attack_noise(3, 2, 5)[0, 2:].numpy(),
+        np.asarray(jax.random.normal(leaf_keys[1], (3,))))
