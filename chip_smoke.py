@@ -9,9 +9,9 @@
    the main path's shape ``[37, 6603710]`` and at edge shapes, and times
    kernel, plain version, a one-call PyTorch yardstick and the bound.
 3. Runs small simulations on the GPU and on the CPU with the same fleet,
-   draws and weights, and holds the two to each other: a synchronous one,
-   and hostile ones under trimmed-mean and multi-Krum; and one CNN
-   gradient step.
+   draws and weights, and holds the two to each other: the MLP's
+   synchronous, trimmed-mean and multi-Krum runs, round by round; and
+   the first slice's small synchronous run of the paper's CNN.
 4. Drives the main path through its entry point: three synchronous rounds
    of the paper's setup at paper scale (SynthFEMNIST with 371 clients,
    the 6,603,710-parameter CNN, 10% of clients per round, B = 10, E = 5,
@@ -35,7 +35,7 @@ import statistics
 import subprocess
 import sys
 import time
-from dataclasses import replace
+from dataclasses import fields, replace
 from pathlib import Path
 
 import torch
@@ -270,115 +270,155 @@ def phase_robust_kernels(gen: torch.Generator) -> dict:
     return out
 
 
-def phase_small_runs() -> None:
-    """GPU against CPU on small runs with the same data, fleet, draws and
-    weights: a synchronous run, a trimmed-mean run on the ``byzantine``
-    fleet and a multi-Krum run on the colluding one (the same Krum
-    selections on both devices), and one CNN gradient step.
-
-    The runs train the MLP at hidden 48: a small CNN's trajectory on the
-    two devices parts at the first ReLU whose input rounds to the other
-    side of zero (one sample's gradient then moves a bias by ~5e-5 at
-    lr 0.1, and a Krum selection or a trimmed row can follow), so the
-    convolutions are held to the CPU on one gradient of local training
-    instead.
-    Tolerances: parameters at rtol 1e-4 / atol 1e-5 (every local step
-    sums in another order on the two devices), metrics at rtol 1e-5, the
-    virtual clock at rtol 1e-6.
+def drive_rounds(sim, rounds: int, entering=None) -> list:
+    """Step ``sim`` through rounds ``1..rounds`` as ``run`` steps them,
+    evaluating after each.  Round ``r`` starts from the previous round's
+    result, or, given ``entering``, from ``entering[r - 1]`` (a state of
+    another run, moved to this device).  Returns one dict per round: the
+    state entering it and after it, its outputs and the global accuracy.
     """
-    from dataclasses import dataclass, field
+    state = sim.init_state()
+    out = []
+    for r in range(1, rounds + 1):
+        if entering is not None:
+            state = replace(entering[r - 1], **{
+                f.name: getattr(entering[r - 1], f.name).to(sim.device)
+                for f in fields(state)})
+        after, ys = sim._round_step(state, r)
+        out.append({"before": state, "after": after, "ys": ys,
+                    "acc": float(sim._evaluate(after.params)[1])})
+        state = after
+    return out
 
-    from torch.func import grad, vmap
 
-    from repro_torch.core.aggregate import compute_weights
-    from repro_torch.data.synthetic import make_synth_femnist
+def rounds_agree(gpu: list, cpu: list) -> float:
+    """Hold two runs' rounds to each other and return the largest
+    parameter gap: parameters at rtol 1e-4 / atol 1e-5 (every local step
+    sums in another order on the two devices), accuracy and weights
+    entropy at rtol 1e-5, the virtual clock at rtol 1e-6 (it passes
+    through ``exp``), participants, commits, last syncs and Krum's
+    selected clients exactly."""
+    gap = 0.0
+    for r, (a, b) in enumerate(zip(gpu, cpu), start=1):
+        pa, pb = a["after"].params.cpu(), b["after"].params
+        torch.testing.assert_close(pa, pb, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"round {r}: {m}")
+        gap = max(gap, (pa - pb).abs().max().item())
+        assert torch.equal(a["after"].last_sync.cpu(),
+                           b["after"].last_sync), f"round {r}: last_sync"
+        assert int(a["after"].commits) == int(b["after"].commits), \
+            f"round {r}: commits"
+        assert (int(a["ys"]["participants"])
+                == int(b["ys"]["participants"])), f"round {r}: participants"
+        if "selected" in a["ys"]:
+            assert (sorted(a["ys"]["selected"].tolist())
+                    == sorted(b["ys"]["selected"].tolist())), \
+                f"round {r}: selected {a['ys']['selected']} " \
+                f"{b['ys']['selected']}"
+        assert math.isclose(float(a["after"].sim_time),
+                            float(b["after"].sim_time), rel_tol=1e-6), \
+            f"round {r}: sim_time"
+        assert math.isclose(a["acc"], b["acc"], rel_tol=1e-5), \
+            f"round {r}: global_acc {a['acc']} {b['acc']}"
+        assert math.isclose(float(a["ys"]["entropy"]),
+                            float(b["ys"]["entropy"]), rel_tol=1e-5), \
+            f"round {r}: weights_entropy"
+    return gap
+
+
+SMALL_RUNS = ("sync", "trimmed-mean", "multi-krum")
+
+
+def small_sims(data, run: str, model: str, lr: float) -> dict:
+    """The GPU and the CPU simulation of one small run, with the same
+    data, fleet, draws and weights: ``run`` is the synchronous round, or
+    trimmed-mean (trim 2) on the ``byzantine`` fleet, or multi-Krum on the
+    colluding one (colluding-flip at scale 4); ``model`` the MLP at
+    hidden 48 or the paper's CNN at hidden 16.  A quarter of the 16
+    clients per round on the sync run, half on the hostile ones (Krum
+    needs S > 2f + 2); B = 8, E = 1."""
     from repro_torch.federated.draws import TorchDraws
-    from repro_torch.federated.engine import (MultiKrumStrategy,
-                                              make_strategy)
+    from repro_torch.federated.engine import make_strategy
     from repro_torch.federated.scenarios import ScenarioConfig, make_fleet
     from repro_torch.federated.simulation import (FederatedSimulation,
                                                   FedSimConfig)
-    from repro_torch.kernels import ops as kops
-    from repro_torch.models.cnn import cnn_loss, init_cnn_params
+    from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params
     from repro_torch.models.mlp import init_mlp_params, mlp_accuracy, mlp_loss
 
-    @dataclass(frozen=True)
-    class RecordingMultiKrum(MultiKrumStrategy):
-        """Multi-Krum that also records each round's selected clients."""
+    scen, strategy = {
+        "sync": (None, lambda: None),
+        "trimmed-mean": (ScenarioConfig(preset="byzantine"),
+                         lambda: make_strategy("trimmed-mean", trim=2)),
+        "multi-krum": (ScenarioConfig(preset="byzantine-colluding",
+                                      attack="colluding-flip",
+                                      attack_scale=4.0),
+                       lambda: make_strategy("multi-krum"))}[run]
+    init, loss, acc, hidden = {
+        "MLP": (init_mlp_params, mlp_loss, mlp_accuracy, 48),
+        "CNN": (init_cnn_params, cnn_loss, cnn_accuracy, 16)}[model]
+    fleet = (make_fleet(scen, data.num_clients, device="cpu")
+             if scen is not None else None)
+    sims = {}
+    for dev in ("cuda", "cpu"):
+        cfg = FedSimConfig(fraction=0.25 if scen is None else 0.5,
+                           batch_size=8, local_epochs=1, lr=lr,
+                           scenario=scen, strategy=strategy())
+        sims[dev] = FederatedSimulation(
+            data, init(torch.Generator().manual_seed(1), hidden=hidden,
+                       device=dev),
+            loss, acc, cfg, draws=TorchDraws(0, "cpu"), fleet=fleet,
+            device=dev)
+    return sims
 
-        picks: list = field(default_factory=list, compare=False)
 
-        def step(self, state, inp, cfg):
-            f, m = self._resolve(int(inp.mask.shape[0]))
-            p = compute_weights(inp.criteria, cfg, tuple(cfg.priority),
-                                mask=inp.contrib)
-            _, scores = kops.flat_krum_agg(inp.stacked, p, f, m)
-            self.picks.append(sorted(
-                torch.sort(scores, stable=True).indices[:m].tolist()))
-            return super().step(state, inp, cfg)
+def phase_small_runs() -> None:
+    """GPU against CPU on the MLP's small runs (:func:`small_sims`), three
+    rounds each, each device running on its own, held to each other
+    round by round (:func:`rounds_agree`), Krum's selections included."""
+    from repro_torch.data.synthetic import make_synth_femnist
 
     data = make_synth_femnist(num_clients=16, mean_samples=24, seed=3)
-    for label, scen, make in [
-            ("sync", None, lambda: None),
-            ("trimmed-mean", ScenarioConfig(preset="byzantine"),
-             lambda: make_strategy("trimmed-mean", trim=2)),
-            ("multi-krum", ScenarioConfig(preset="byzantine-colluding",
-                                          attack="colluding-flip",
-                                          attack_scale=4.0),
-             RecordingMultiKrum)]:
-        fleet = (make_fleet(scen, data.num_clients, device="cpu")
-                 if scen is not None else None)
-        results, picks = {}, {}
-        for dev in ("cuda", "cpu"):
-            strategy = make()
-            cfg = FedSimConfig(fraction=0.25 if scen is None else 0.5,
-                               batch_size=8, local_epochs=1, lr=0.1,
-                               max_rounds=3, eval_every=1, scenario=scen,
-                               strategy=strategy)
-            params = init_mlp_params(torch.Generator().manual_seed(1),
-                                     hidden=48, device=dev)
-            sim = FederatedSimulation(data, params, mlp_loss, mlp_accuracy,
-                                      cfg, draws=TorchDraws(0, "cpu"),
-                                      fleet=fleet, device=dev)
-            results[dev] = sim.run(verbose=False)
-            picks[dev] = getattr(strategy, "picks", None)
-        gpu, cpu = results["cuda"], results["cpu"]
-        assert picks["cuda"] == picks["cpu"], picks
-        torch.testing.assert_close(gpu.final_state.params.cpu(),
-                                   cpu.final_state.params, rtol=1e-4,
-                                   atol=1e-5)
-        for a, b in zip(gpu.metrics, cpu.metrics):
-            assert a.participants == b.participants and a.commits == b.commits
-            assert math.isclose(a.sim_time, b.sim_time, rel_tol=1e-6), (a, b)
-            assert math.isclose(a.global_acc, b.global_acc, rel_tol=1e-5)
-            assert math.isclose(a.weights_entropy, b.weights_entropy,
-                                rel_tol=1e-5), (a, b)
-        gap = (gpu.final_state.params.cpu()
-               - cpu.final_state.params).abs().max().item()
-        log(f"small {label} run, GPU vs CPU: max |params gap| = {gap:.3e}, "
-            f"acc {[round(m.global_acc, 4) for m in gpu.metrics]}, "
-            f"participants {[m.participants for m in gpu.metrics]}"
-            + (f", selections {picks['cuda']}" if picks["cuda"] else ""))
+    for run in SMALL_RUNS:
+        sims = small_sims(data, run, "MLP", lr=0.1)
+        gpu = drive_rounds(sims["cuda"], 3)
+        gap = rounds_agree(gpu, drive_rounds(sims["cpu"], 3))
+        sel = [sorted(g["ys"]["selected"].tolist()) for g in gpu
+               if "selected" in g["ys"]]
+        log(f"small MLP {run} run, GPU vs CPU: max |params gap| = "
+            f"{gap:.3e}, acc {[round(g['acc'], 4) for g in gpu]}, "
+            f"participants {[int(g['ys']['participants']) for g in gpu]}"
+            + (f", selections {sel}" if sel else ""))
 
-    # local training's gradient: vmap over 4 clients' copies of the CNN,
-    # which reaches cuDNN as grouped convolutions
-    images = torch.as_tensor(data.images[:4, :8])
-    labels = torch.as_tensor(data.labels[:4, :8]).long()
-    grads = {}
+
+def phase_small_sim() -> None:
+    """GPU against CPU on a small run: same data, weights and draws."""
+    from repro_torch.data.synthetic import make_synth_femnist
+    from repro_torch.federated.draws import TorchDraws
+    from repro_torch.federated.simulation import (FederatedSimulation,
+                                                  FedSimConfig)
+    from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn_params
+
+    data = make_synth_femnist(num_clients=16, mean_samples=24, seed=3)
+    cfg = FedSimConfig(fraction=0.25, batch_size=8, local_epochs=1, lr=0.1,
+                       max_rounds=2, eval_every=1)
+    results = {}
     for dev in ("cuda", "cpu"):
-        params = init_cnn_params(torch.Generator().manual_seed(1), hidden=64,
+        params = init_cnn_params(torch.Generator().manual_seed(1), hidden=16,
                                  device=dev)
-        stacked = {k: v.expand(4, *v.shape).contiguous()
-                   for k, v in params.items()}
-        grads[dev] = vmap(grad(cnn_loss))(stacked, images.to(dev),
-                                          labels.to(dev))
-    worst = 0.0
-    for k, g in grads["cpu"].items():
-        torch.testing.assert_close(grads["cuda"][k].cpu(), g, rtol=1e-4,
-                                   atol=1e-5)
-        worst = max(worst, (grads["cuda"][k].cpu() - g).abs().max().item())
-    log(f"CNN gradient step (4 clients), GPU vs CPU: max |grad gap| = "
-        f"{worst:.3e}")
+        sim = FederatedSimulation(data, params, cnn_loss, cnn_accuracy, cfg,
+                                  draws=TorchDraws(0, "cpu"), device=dev)
+        results[dev] = sim.run(verbose=False)
+    gpu, cpu = results["cuda"], results["cpu"]
+    # f32 on both sides (TF32 off); every local step sums in another order
+    torch.testing.assert_close(gpu.final_state.params.cpu(),
+                               cpu.final_state.params, rtol=1e-4, atol=1e-5)
+    for a, b in zip(gpu.metrics, cpu.metrics):
+        assert math.isclose(a.global_acc, b.global_acc, rel_tol=1e-5), (a, b)
+        assert math.isclose(a.weights_entropy, b.weights_entropy,
+                            rel_tol=1e-5), (a, b)
+    gap = (gpu.final_state.params.cpu() - cpu.final_state.params).abs().max()
+    log(f"small run, GPU vs CPU: max |params gap| = {gap.item():.3e}, "
+        f"acc {[m.global_acc for m in gpu.metrics]}")
 
 
 def phase_main_path():
@@ -590,6 +630,7 @@ def main() -> int:
     rows = phase_kernels(gen)
     rows.update(phase_robust_kernels(gen))
     phase_small_runs()
+    phase_small_sim()
     launches, data, cfg = phase_main_path()
     phase_profile(data, cfg)
     hostile = phase_hostile_path(data)

@@ -98,7 +98,8 @@ class AggregationStrategy:
              cfg: AggregationConfig
              ) -> Tuple[ServerState, Dict[str, torch.Tensor]]:
         """Fold one round's client products into the carry; returns the
-        new carry and the round's metrics (``entropy`` of the weights)."""
+        new carry and the round's metrics (``entropy`` of the weights;
+        Krum adds ``selected``, the clients it averaged)."""
         raise NotImplementedError
 
 
@@ -174,7 +175,8 @@ class KrumStrategy(AggregationStrategy):
     bound ``(S - 3) // 2``; ``f`` and ``m`` are checked against ``S`` at
     the first step.  Dropped uploads score ``+inf`` but still serve as
     neighbours.  The distances are the ``pairwise_sq_dists`` CUDA kernel
-    on the GPU, the average the ``weighted_agg`` one.
+    on the GPU, the average the ``weighted_agg`` one.  The round's
+    metrics carry the ``m`` averaged clients' indices as ``selected``.
     """
 
     f: Optional[int] = None
@@ -198,8 +200,11 @@ class KrumStrategy(AggregationStrategy):
         f, m = self._resolve(int(inp.mask.shape[0]))
         p = compute_weights(inp.criteria, cfg, tuple(cfg.priority),
                             mask=inp.contrib)
-        new_params, _ = kops.flat_krum_agg(inp.stacked, p, f, m)
-        return _sync_commit(state, inp, p, new_params)
+        new_params, scores = kops.flat_krum_agg(inp.stacked, p, f, m)
+        state, ys = _sync_commit(state, inp, p, new_params)
+        # the m clients averaged: lowest scores, ties to the lower index
+        ys["selected"] = torch.sort(scores, stable=True).indices[:m]
+        return state, ys
 
 
 @dataclass(frozen=True)

@@ -76,9 +76,32 @@ __device__ __forceinline__ float from_key(int key) {
   return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
 }
 
-size_t smem_bytes(int S, int threads) {
+// Shared memory of one block: the [S, threads] key tile, the keep bit
+// masks and the [S] weights.
+size_t smem_bytes(int64_t S, int threads) {
   const size_t words = (static_cast<size_t>(S) + 31) / 32;
   return 4 * (static_cast<size_t>(S) * threads + words * threads + S);
+}
+
+// The shared memory a block may opt in to on the current device (227 KB
+// on an H100), or 0 if it cannot be read.
+size_t smem_limit() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return 0;
+  }
+  return static_cast<size_t>(bytes);
+}
+
+// Columns per block, the most of 256, 128, 64 and 32 whose block fits;
+// 0 if not even 32 do.
+int pick_threads(int64_t S, size_t limit) {
+  for (int threads = 256; threads >= 32; threads /= 2) {
+    if (smem_bytes(S, threads) <= limit) return threads;
+  }
+  return 0;
 }
 
 template <typename T>
@@ -151,14 +174,14 @@ __global__ void trimmed_agg_kernel(const T* __restrict__ x,
 
 template <typename T>
 int launch(const void* x, const float* w, void* out, int64_t S, int64_t N,
-           int64_t trim, int64_t threads, void* stream) {
-  if (S < 1 || N < 1 || trim < 0 || 2 * trim >= S || S > 0x7fffffffLL ||
-      (threads != 32 && threads != 64 && threads != 128 && threads != 256)) {
+           int64_t trim, void* stream) {
+  if (S < 1 || N < 1 || trim < 0 || 2 * trim >= S || S > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int threads = pick_threads(S, smem_limit());
+  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = (N + threads - 1) / threads;
-  const size_t bytes = smem_bytes(static_cast<int>(S),
-                                  static_cast<int>(threads));
+  const size_t bytes = smem_bytes(S, threads);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -177,19 +200,27 @@ int launch(const void* x, const float* w, void* out, int64_t S, int64_t N,
 }  // namespace
 
 // Plain C entry points for ctypes.  x: [S, N] row-major, w: [S] f32, out:
-// [N] of x's dtype; all on the current device.  `threads` (32, 64, 128 or
-// 256) columns per block; the wrapper picks it so that the block's
-// 4*(S*threads + ceil(S/32)*threads + S) bytes of shared memory fit.
-// Launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success).
+// [N] of x's dtype; all on the current device.  Each block takes as many
+// columns (256, 128, 64 or 32) as its shared memory allows.  Launches on
+// `stream` without synchronising and returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for S above trimmed_agg_max_rows().
 extern "C" int trimmed_agg_f32(const void* x, const float* w, void* out,
                                int64_t S, int64_t N, int64_t trim,
-                               int64_t threads, void* stream) {
-  return launch<float>(x, w, out, S, N, trim, threads, stream);
+                               void* stream) {
+  return launch<float>(x, w, out, S, N, trim, stream);
 }
 
 extern "C" int trimmed_agg_bf16(const void* x, const float* w, void* out,
                                 int64_t S, int64_t N, int64_t trim,
-                                int64_t threads, void* stream) {
-  return launch<__nv_bfloat16>(x, w, out, S, N, trim, threads, stream);
+                                void* stream) {
+  return launch<__nv_bfloat16>(x, w, out, S, N, trim, stream);
+}
+
+// The largest S whose tile fits a block of 32 columns on the current
+// device (1,708 on an H100).
+extern "C" int64_t trimmed_agg_max_rows() {
+  const size_t limit = smem_limit();
+  int64_t S = static_cast<int64_t>(limit / (4 * 32));
+  while (S > 0 && pick_threads(S, limit) == 0) --S;
+  return S;
 }

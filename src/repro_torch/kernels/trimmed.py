@@ -22,22 +22,16 @@ __all__ = ["trimmed_agg", "trimmed_agg_ref", "max_rows"]
 
 _ENTRY = {torch.float32: "trimmed_agg_f32",
           torch.bfloat16: "trimmed_agg_bf16"}
-# Columns (threads) per block, largest first, and the shared memory a
-# block may opt in to on an H100 (227 KB).
-_THREADS = (256, 128, 64, 32)
-_SMEM_LIMIT = 232_448
 
 
-def _smem_bytes(S: int, threads: int) -> int:
-    """Shared memory of one block: the ``[S, threads]`` f32 tile, the
-    keep bit masks and the ``[S]`` weights (``csrc/trimmed.cu``)."""
-    return 4 * (S * threads + -(-S // 32) * threads + S)
-
-
+@functools.lru_cache(maxsize=None)
 def max_rows() -> int:
-    """The largest ``S`` whose tile fits a block of 32 columns (1,708)."""
-    return max(S for S in range(1, _SMEM_LIMIT // 128 + 1)
-               if _smem_bytes(S, 32) <= _SMEM_LIMIT)
+    """The largest ``S`` whose tile fits a block of 32 columns in the
+    card's shared memory (1,708 on an H100).  The kernel's source owns
+    the block's layout, so this asks it."""
+    fn = _build.load("trimmed").trimmed_agg_max_rows
+    fn.argtypes, fn.restype = [], ctypes.c_int64
+    return int(fn())
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,7 +39,7 @@ def _entry(dtype: torch.dtype):
     fn = getattr(_build.load("trimmed"), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_void_p]
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,18 +74,15 @@ def trimmed_agg(stacked: torch.Tensor, weights: torch.Tensor,
                          f"{stacked.device}")
     if not (stacked.is_contiguous() and weights.is_contiguous()):
         raise ValueError("trimmed_agg needs contiguous inputs")
-    threads = next((t for t in _THREADS
-                    if _smem_bytes(S, t) <= _SMEM_LIMIT), None)
-    if threads is None:
-        raise ValueError(f"trimmed_agg takes at most S={max_rows()} rows "
-                         f"(its [S, 32] tile must fit in {_SMEM_LIMIT} "
-                         f"bytes of shared memory), got S={S}")
-    out = torch.empty(N, dtype=stacked.dtype, device=stacked.device)
     with torch.cuda.device(stacked.device):
+        if S > max_rows():
+            raise ValueError(f"trimmed_agg takes at most S={max_rows()} rows "
+                             f"(its [S, 32] tile must fit in a block's "
+                             f"shared memory), got S={S}")
+        out = torch.empty(N, dtype=stacked.dtype, device=stacked.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry(stacked.dtype)(stacked.data_ptr(), weights.data_ptr(),
-                                    out.data_ptr(), S, N, int(trim), threads,
-                                    stream)
+                                    out.data_ptr(), S, N, int(trim), stream)
     if err:
         raise RuntimeError(f"trimmed_agg kernel launch failed: CUDA error "
                            f"{err}")

@@ -27,6 +27,7 @@ import torch
 from _attacks import hostile_matrix
 from _propcheck import given, settings, st
 from repro.core import AggregationConfig as JaxAggregationConfig
+from repro.core import compute_weights as jcompute_weights
 from repro.federated import engine as jengine
 from repro.kernels import krum as jkrum
 from repro.kernels import ref as jref
@@ -342,6 +343,17 @@ def test_strategy_step_matches_the_reference(name, kwargs, dropped):
     assert int(new.commits) == int(jnew.commits)
     np.testing.assert_allclose(float(ys["entropy"]), float(jys["entropy"]),
                                rtol=1e-5)
+    if "krum" in name:
+        # the clients averaged: the reference's m lowest scores, exactly
+        f, m = strat._resolve(8)
+        jp = jcompute_weights(jnp.asarray(arrays["criteria"]),
+                              JaxAggregationConfig(priority=(2, 0, 1)),
+                              (2, 0, 1), mask=jnp.asarray(arrays["contrib"]))
+        _, jscores = jref.krum_agg_ref(jnp.asarray(arrays["stacked"]), jp, f,
+                                       m)
+        np.testing.assert_array_equal(
+            ys["selected"].numpy(),
+            np.argsort(_np(jscores), kind="stable")[:m])
     if len(dropped) == 8:                          # a no-op round
         assert torch.equal(new.params, _t(params))
 
